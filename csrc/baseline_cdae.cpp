@@ -721,7 +721,7 @@ int run_bench(int argc, char** argv) {
 
 // bench_mf <MF|BPR|WARP> [U I avg_degree dim seconds] — measures the
 // reference-semantics sequential CPU hot loop in users/sec (the pairwise
-// baseline the TPU build must beat; VERDICT round-1 item 1).
+// baseline the accelerator build must beat; VERDICT round-1 item 1).
 int run_bench_mf(int argc, char** argv) {
   std::string method = argc > 2 ? argv[2] : "BPR";
   size_t U = argc > 3 ? std::strtoul(argv[3], nullptr, 10) : 6040;
@@ -1417,7 +1417,7 @@ int run_parity_ranking(int argc, char** argv) {
 // semantics sequential ALS (per-row D x D normal equations + dense
 // inverse, ref als.hpp:65-107 / wrmf.hpp:66-100) on synthetic data with
 // the same generator as bench_mf; reports ms per full user+item sweep.
-// The CPU baseline row for the TPU ShardedALS/fused-iteration numbers
+// The CPU baseline row for the accelerator ShardedALS/fused-iteration numbers
 // (VERDICT r4 item 7).
 int run_bench_als(int argc, char** argv) {
   std::string method = argc > 2 ? argv[2] : "ALS";
@@ -1493,7 +1493,7 @@ int run_bench_als(int argc, char** argv) {
 // bench_sim <ITEMCF|USERCF> [U I deg topk reps] — reference-semantics
 // co-occurrence neighbor build (hash-map candidate counting + Jaccard +
 // per-index top-k, ref similarity_base.hpp:42-95) on synthetic data;
-// reports seconds per full build. The CPU baseline row for the TPU
+// reports seconds per full build. The CPU baseline row for the accelerator
 // SimilarityBase sparse-matmul build (VERDICT r4 item 7).
 int run_bench_sim(int argc, char** argv) {
   std::string method = argc > 2 ? argv[2] : "ITEMCF";

@@ -1,7 +1,7 @@
-// Native host-side runtime for cdae_tpu: fast text->COO dataset loading with
+// Native host-side runtime for cdae_jax: fast text->COO dataset loading with
 // string->id vocab building, and parallel CSR construction.
 //
-// TPU-native counterpart of the reference's C++ base layer: FileLineReader
+// Host-side counterpart of the reference's C++ base layer: FileLineReader
 // streaming (/root/reference/src/base/io/file_line_reader.hpp:11-31),
 // FeatureGroupInfo::get_index vocab growth (src/base/instance-inl.hpp:22-37),
 // and the hashtable views (src/base/data-inl.hpp:318-429) — re-designed as
@@ -11,7 +11,7 @@
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 in this image).
 //
-// Build: see csrc/Makefile -> cdae_tpu/_native/libcdae_host.so
+// Build: see csrc/Makefile -> cdae_jax/_native/libcdae_host.so
 
 #include <algorithm>
 #include <atomic>

@@ -13,9 +13,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from cdae_tpu.data.dataset import Interactions, movielens_line_parser
-from cdae_tpu.models import CDAE, CDAEConfig, Popularity
-from cdae_tpu.solver.solver import Solver
+from cdae_jax.data.dataset import Interactions, movielens_line_parser
+from cdae_jax.models import CDAE, CDAEConfig, Popularity
+from cdae_jax.solver.solver import Solver
 
 
 def main() -> int:

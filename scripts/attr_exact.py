@@ -40,9 +40,9 @@ def main():
     import jax.numpy as jnp
 
     from bench import synthetic_interactions
-    from cdae_tpu.models.base import iter_user_batches_csr
-    from cdae_tpu.models.cdae import CDAE, CDAEConfig
-    from cdae_tpu.ops import sampling
+    from cdae_jax.models.base import iter_user_batches_csr
+    from cdae_jax.models.cdae import CDAE, CDAEConfig
+    from cdae_jax.ops import sampling
 
     data = synthetic_interactions(args.users, args.items, args.degree)
     print(f"# {data}", file=sys.stderr)
@@ -50,7 +50,7 @@ def main():
     base = dict(num_dim=args.dim, loss="SQUARE", corruption_ratio=0.5,
                 scaled=True, num_neg=5, user_factor=True,
                 batch_size=args.batch_size, stream_batches=True,
-                dense_mode=False, use_pallas=False)
+                dense_mode=False)
     model = CDAE(CDAEConfig(**base))
     state = model.reset(data, seed=0)
     csr = state.aux["csr"]

@@ -83,11 +83,11 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from cdae_tpu.data.dataset import Interactions
-    from cdae_tpu.models.cdae import CDAE, CDAEConfig
-    from cdae_tpu.models.mf import IMF, MFConfig
-    from cdae_tpu.parallel.mesh import make_mesh
-    from cdae_tpu.parallel.sharded import (
+    from cdae_jax.data.dataset import Interactions
+    from cdae_jax.models.cdae import CDAE, CDAEConfig
+    from cdae_jax.models.mf import IMF, MFConfig
+    from cdae_jax.parallel.mesh import make_mesh
+    from cdae_jax.parallel.sharded import (
         make_batch,
         make_sharded_dense_step,
         make_sharded_mf_dense_step,
@@ -104,8 +104,7 @@ def main():
         num_users=U, num_items=I,
     )
     mesh = make_mesh(n_data=4, n_model=2)
-    model = CDAE(CDAEConfig(num_dim=args.dim, batch_size=B, loss="SQUARE",
-                            use_pallas=False))
+    model = CDAE(CDAEConfig(num_dim=args.dim, batch_size=B, loss="SQUARE"))
     state = model.reset(data, seed=0)
     params = shard_cdae_state(mesh, state.params)
     pb = state.padded
@@ -124,8 +123,7 @@ def main():
     reports["cdae_sparse_train_step"] = audit_hlo(hlo)
 
     # --- dense CDAE train step ---
-    model2 = CDAE(CDAEConfig(num_dim=args.dim, batch_size=B, loss="SQUARE",
-                             use_pallas=False, dense_mode=True))
+    model2 = CDAE(CDAEConfig(num_dim=args.dim, batch_size=B, loss="SQUARE", dense_mode=True))
     state2 = model2.reset(data, seed=0)
     params2 = shard_cdae_state(mesh, state2.params)
     dstep = make_sharded_dense_step(model2, mesh, params2)
@@ -138,7 +136,7 @@ def main():
     # --- dense IMF step ---
     mf = IMF(MFConfig(num_dim=args.dim, batch_size=B, dense_mode=True))
     mstate = mf.reset(data, seed=0)
-    from cdae_tpu.parallel.mesh import mf_param_specs, shard_params
+    from cdae_jax.parallel.mesh import mf_param_specs, shard_params
 
     mparams = shard_params(mesh, mstate.params, mf_param_specs(mstate.params))
     mstep = make_sharded_mf_dense_step(mf, mesh, mparams)
@@ -147,8 +145,8 @@ def main():
     reports["imf_dense_step"] = audit_hlo(hlo)
 
     # --- sharded pairwise epoch (BPR under DP, factored one-hot grads) ---
-    from cdae_tpu.models.mf import BPR
-    from cdae_tpu.parallel.trainer import ShardedPairwise
+    from cdae_jax.models.mf import BPR
+    from cdae_jax.parallel.trainer import ShardedPairwise
 
     pw = ShardedPairwise(
         BPR(MFConfig(num_dim=args.dim, num_neg=2, batch_size=B,
@@ -162,7 +160,7 @@ def main():
     # + the shard_map aggregation hook (see ShardedPairwise notes below)
     from jax.sharding import NamedSharding, PartitionSpec as PS
 
-    from cdae_tpu.ops.scatter import batch_axis_mesh
+    from cdae_jax.ops.scatter import batch_axis_mesh
 
     fn = pw.inner._epoch_fn(nb, constrain=pw._constrain, external_perm=True)
     du, di, dr, dpi, dpl = pw._sharded_device_data(pstate)
@@ -176,7 +174,7 @@ def main():
     reports["bpr_pairwise_epoch"] = audit_hlo(hlo)
 
     # --- item-sharded TP pairwise epoch (explicit shard_map collectives) ---
-    from cdae_tpu.parallel.tp_pairwise import ShardedMFTP
+    from cdae_jax.parallel.tp_pairwise import ShardedMFTP
 
     tp = ShardedMFTP(
         BPR(MFConfig(num_dim=args.dim, num_neg=2, batch_size=B,
@@ -192,8 +190,8 @@ def main():
     reports["bpr_tp_epoch"] = audit_hlo(hlo)
 
     # --- sharded dense FISM step ---
-    from cdae_tpu.models.fism import FISMConfig
-    from cdae_tpu.parallel.trainer import ShardedFISM
+    from cdae_jax.models.fism import FISMConfig
+    from cdae_jax.parallel.trainer import ShardedFISM
 
     sf = ShardedFISM(FISMConfig(num_dim=args.dim, num_neg=2, batch_size=B,
                                 dense_mode=True), mesh=mesh)

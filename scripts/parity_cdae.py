@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Metric-parity harness: TPU-native CDAE vs the reference-semantics C++
+"""Metric-parity harness: this CDAE vs the reference-semantics C++
 implementation on an identical train/test split (BASELINE.md step 1-2).
 
 Generates a structured synthetic dataset (low-rank + popularity skew),
 splits per-user 80/20, trains BOTH implementations with the canonical
-config, and reports recall@10 / MAP@10 side by side. Parity gate: the TPU
+config, and reports recall@10 / MAP@10 side by side. Parity gate: this
 build must be within --tolerance (absolute) of the C++ recall@10 or better.
 
 Modes:
@@ -50,16 +50,15 @@ GRID = [
     # exact-sampling oracle at equal epochs. dense_mode off so the sparse
     # path (where neg_pool lives) actually runs.
     ("neg_pool=4096", [],
-     {"neg_pool": 4096, "dense_mode": False, "use_pallas": False}),
+     {"neg_pool": 4096, "dense_mode": False}),
     # touched-rows delta AdaGrad (CDAEConfig.row_update — the huge-catalog
     # apply): per-contribution accumulator cadence instead of accumulate-
     # then-apply; gate vs the same exact-sampling oracle. The second cell
     # is the actual config-5 combination (row updates + pooled negatives).
     ("row_update", [],
-     {"row_update": True, "dense_mode": False, "use_pallas": False}),
+     {"row_update": True, "dense_mode": False}),
     ("row_update+pool", [],
-     {"row_update": True, "neg_pool": 4096, "dense_mode": False,
-      "use_pallas": False}),
+     {"row_update": True, "neg_pool": 4096, "dense_mode": False}),
 ]
 
 
@@ -81,14 +80,14 @@ def cpp_run(exe, tr_path, te_path, args, cratio, flags):
     return json.loads(out)
 
 
-def tpu_run(train, test, args, overrides):
+def ours_run(train, test, args, overrides):
     # batched AdaGrad needs enough update steps per epoch to match the
     # sequential trajectory: batch 64 reaches reference parity at the same
     # epoch count (validated sweep: R@10 0.5545 vs C++ 0.5552 @ 25 epochs)
     import jax
 
-    from cdae_tpu.evaluation import Evaluation
-    from cdae_tpu.models.cdae import CDAE, CDAEConfig
+    from cdae_jax.evaluation import Evaluation
+    from cdae_jax.models.cdae import CDAE, CDAEConfig
 
     cfg = dict(
         num_dim=args.dim, learn_rate=args.lr, lambda_=0.01, loss="SQUARE",
@@ -121,7 +120,7 @@ def main():
                     help="comma-separated grid cell names to run")
     args = ap.parse_args()
 
-    from cdae_tpu.data.synthetic import lowrank_interactions, write_pairs
+    from cdae_jax.data.synthetic import lowrank_interactions, write_pairs
 
     data = lowrank_interactions(args.users, args.items, args.degree,
                                 seed=args.seed)
@@ -145,14 +144,14 @@ def main():
         for name, flags, overrides in cells:
             cratio = overrides.get("corruption_ratio", args.cratio)
             cpp = cpp_run(exe, tr_path, te_path, args, cratio, flags)
-            ours = tpu_run(train, test, args, overrides)
+            ours = ours_run(train, test, args, overrides)
             delta = ours["R@10"] - cpp["recall_at_10"]
             cell = {
                 "variant": name,
                 "cpp_recall_at_10": cpp["recall_at_10"],
-                "tpu_recall_at_10": round(ours["R@10"], 5),
+                "ours_recall_at_10": round(ours["R@10"], 5),
                 "cpp_map_at_10": cpp["map_at_10"],
-                "tpu_map_at_10": round(ours["MAP@10"], 5),
+                "ours_map_at_10": round(ours["MAP@10"], 5),
                 "delta_recall": round(delta, 5),
                 "parity": bool(delta >= -args.tolerance),
             }

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""RANKING (NDCG) end-to-end parity: TPU PMF + batched RANKING evaluator vs
+"""RANKING (NDCG) end-to-end parity: this PMF + batched RANKING evaluator vs
 the reference-semantics C++ sequential PMF + evaluation loop
 (ref pmf.hpp:80-109 + evaluation.hpp:223-361) on an identical rated split.
 
@@ -38,9 +38,9 @@ def main() -> int:
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
 
-    from cdae_tpu.data.synthetic import lowrank_rated, write_triples
-    from cdae_tpu.evaluation import Evaluation
-    from cdae_tpu.models.mf import PMF, MFConfig
+    from cdae_jax.data.synthetic import lowrank_rated, write_triples
+    from cdae_jax.evaluation import Evaluation
+    from cdae_jax.models.mf import PMF, MFConfig
 
     data = lowrank_rated(args.users, args.items, args.degree, seed=args.seed)
     train, test = data.split_by_user(0.2, seed=args.seed)
@@ -76,7 +76,7 @@ def main() -> int:
         key, sub = jax.random.split(key)
         state = model.train_one_iteration(state, sub)
     ours = Evaluation.create("RANKING").evaluate(model, state, test, train)
-    print(f"# TPU PMF RANKING: "
+    print(f"# ours PMF RANKING: "
           + " ".join(f"{k}={v:.5f}" for k, v in ours.items()
                      if k != "TestTime"),
           file=sys.stderr)
@@ -92,7 +92,7 @@ def main() -> int:
         delta = ours[tk] - cpp[ck]
         cell_ok = abs(delta) <= args.tolerance
         ok = ok and cell_ok
-        out[tk] = {"cpp": round(cpp[ck], 5), "tpu": round(ours[tk], 5),
+        out[tk] = {"cpp": round(cpp[ck], 5), "ours": round(ours[tk], 5),
                    "delta": round(delta, 5), "parity": cell_ok}
     print(json.dumps(out))
     return 0 if ok else 1

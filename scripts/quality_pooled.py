@@ -3,7 +3,7 @@
 The only pooled-vs-exact oracle cell so far was the 2000u x 800i WORST-case
 harness; this records the regime where pooled sampling is the default:
 200k users x 50k items (config-5-shaped, heavy-tailed degrees). Both arms
-run the SAME sparse CDAE step on TPU — exact complement sampling vs
+run the SAME sparse CDAE step — exact complement sampling vs
 neg_pool — at equal epochs AND at 2x epochs for the pooled arm (the
 documented slab-cadence style compensation), reporting recall@10/MAP@10
 on a fixed 20k-user validation subsample.
@@ -28,7 +28,7 @@ def gumbel_lowrank(num_users, num_items, avg_degree, rank=8, seed=20141119):
     per-user rng.choice of data/synthetic.py is too slow past ~10k users."""
     import numpy as np
 
-    from cdae_tpu.data.dataset import Interactions
+    from cdae_jax.data.dataset import Interactions
 
     rng = np.random.default_rng(seed)
     uf = rng.standard_normal((num_users, rank)).astype(np.float32)
@@ -76,9 +76,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from cdae_tpu.data.dataset import Interactions
-    from cdae_tpu.evaluation import Evaluation
-    from cdae_tpu.models.cdae import CDAE, CDAEConfig
+    from cdae_jax.data.dataset import Interactions
+    from cdae_jax.evaluation import Evaluation
+    from cdae_jax.models.cdae import CDAE, CDAEConfig
 
     t0 = time.time()
     data = gumbel_lowrank(args.users, args.items, args.degree)
@@ -98,7 +98,7 @@ def main():
             num_dim=args.dim, loss="SQUARE", corruption_ratio=0.5,
             scaled=True, num_neg=5, user_factor=True,
             batch_size=args.batch_size, stream_batches=True,
-            dense_mode=False, use_pallas=False, neg_pool=neg_pool,
+            dense_mode=False, neg_pool=neg_pool,
         )
         model = CDAE(cfg)
         state = model.reset(train, seed=0)

@@ -6,14 +6,14 @@ process boundaries: N in {1, 2, 4} JAX processes on CPU, each pinned to
 its own core (taskset) with single-threaded XLA compute, pure-DP mesh over
 the 'data' axis, FIXED PER-PROCESS batch (global batch = N x local). The
 per-step gradient all-reduce (see COMMS.md) crosses the jax.distributed
-transport exactly as it would cross ICI/DCN between TPU hosts.
+transport exactly as it would cross the interconnect between hosts.
 
 Weak-scaling efficiency = t_1proc / t_Nproc: the fraction of a step NOT
 lost to collectives/rendezvous as processes are added. Aggregate users/s
 should grow ~linearly; the step-time delta vs 1 proc IS the measured
 collective overhead. (On this 4-core host the absolute numbers are
 CPU-bound; the harness and efficiency metric are what transfer to real
-multi-host TPU runs.)
+multi-host runs.)
 
 Run: python scripts/scaling_procs.py [--steps 30] [--batch 128]
 """
@@ -31,14 +31,14 @@ os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=1 "
                            "--xla_cpu_multi_thread_eigen=false")
 import jax
 jax.config.update("jax_platforms", "cpu")
-from cdae_tpu.parallel.distributed import initialize
+from cdae_jax.parallel.distributed import initialize
 initialize()
 import numpy as np
 import jax.numpy as jnp
-from cdae_tpu.data.dataset import Interactions
-from cdae_tpu.models.cdae import CDAE, CDAEConfig
-from cdae_tpu.parallel.mesh import make_mesh
-from cdae_tpu.parallel.sharded import (
+from cdae_jax.data.dataset import Interactions
+from cdae_jax.models.cdae import CDAE, CDAEConfig
+from cdae_jax.parallel.mesh import make_mesh
+from cdae_jax.parallel.sharded import (
     make_sharded_dense_step, shard_cdae_state)
 
 B_LOCAL = int(os.environ["SCALE_BATCH"])    # per-process batch (fixed)
@@ -51,8 +51,7 @@ data = Interactions.from_arrays((pairs // I).astype(np.int32),
                                 (pairs % I).astype(np.int32),
                                 num_users=U, num_items=I)
 B = B_LOCAL * jax.process_count()           # global batch grows with N
-model = CDAE(CDAEConfig(num_dim=D, batch_size=B, loss="SQUARE",
-                        use_pallas=False, dense_mode=True))
+model = CDAE(CDAEConfig(num_dim=D, batch_size=B, loss="SQUARE", dense_mode=True))
 state = model.reset(data, seed=0)
 mesh = make_mesh()  # all devices on 'data' (pure DP), n_model=1
 params = shard_cdae_state(mesh, state.params)
@@ -86,14 +85,14 @@ os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=1 "
                            "--xla_cpu_multi_thread_eigen=false")
 import jax
 jax.config.update("jax_platforms", "cpu")
-from cdae_tpu.parallel.distributed import initialize
+from cdae_jax.parallel.distributed import initialize
 initialize()
 import numpy as np
 import jax.numpy as jnp
-from cdae_tpu.data.dataset import Interactions
-from cdae_tpu.models.mf import BPR, MFConfig
-from cdae_tpu.parallel.mesh import make_mesh
-from cdae_tpu.parallel.trainer import ShardedPairwise
+from cdae_jax.data.dataset import Interactions
+from cdae_jax.models.mf import BPR, MFConfig
+from cdae_jax.parallel.mesh import make_mesh
+from cdae_jax.parallel.trainer import ShardedPairwise
 
 B_LOCAL = int(os.environ["SCALE_BATCH"])
 STEPS = int(os.environ["SCALE_STEPS"])
@@ -134,14 +133,14 @@ os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=1 "
                            "--xla_cpu_multi_thread_eigen=false")
 import jax
 jax.config.update("jax_platforms", "cpu")
-from cdae_tpu.parallel.distributed import initialize
+from cdae_jax.parallel.distributed import initialize
 initialize()
 import numpy as np
 import jax.numpy as jnp
-from cdae_tpu.data.dataset import Interactions
-from cdae_tpu.models.mf import BPR, MFConfig
-from cdae_tpu.parallel.mesh import make_mesh
-from cdae_tpu.parallel.tp_pairwise import ShardedMFTP
+from cdae_jax.data.dataset import Interactions
+from cdae_jax.models.mf import BPR, MFConfig
+from cdae_jax.parallel.mesh import make_mesh
+from cdae_jax.parallel.tp_pairwise import ShardedMFTP
 
 B = int(os.environ["SCALE_BATCH"])
 STEPS = int(os.environ["SCALE_STEPS"])

@@ -2,10 +2,10 @@
 the production path a reference user would actually run — prepare ->
 split -> Solver.train with TOPN eval cadence — with every huge-catalog
 mechanism engaged at once: CSR streaming batches, pooled negatives,
-lane-packed IO, and the CSR-fused serving kernel behind the evaluator's
-batch_topk preference.
+packed IO, and the streaming top-k behind the evaluator's batch_topk
+preference.
 
-Run from /root/repo on the TPU:  python scripts/solver_config5.py
+Run from the repo root on the accelerator:  python scripts/solver_config5.py
 """
 
 import argparse
@@ -15,9 +15,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from cdae_tpu.utils.compile_cache import enable as _enable_cache
+from cdae_jax.utils.compile_cache import enable as _enable_cache
 
-_enable_cache()  # persistent XLA cache (CDAE_COMPILE_CACHE=off to skip)
+_enable_cache()  # persistent XLA compile cache
 
 
 def main():
@@ -34,9 +34,9 @@ def main():
     args = ap.parse_args()
 
     from bench import synthetic_interactions
-    from cdae_tpu.data.dataset import Interactions
-    from cdae_tpu.models.cdae import CDAE, CDAEConfig
-    from cdae_tpu.solver.solver import Solver
+    from cdae_jax.data.dataset import Interactions
+    from cdae_jax.models.cdae import CDAE, CDAEConfig
+    from cdae_jax.solver.solver import Solver
 
     t0 = time.time()
     data = synthetic_interactions(args.users, args.items, args.degree)

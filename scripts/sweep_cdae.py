@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""CDAE hyperparameter sweep — the reference's qsub grid, on one TPU.
+"""CDAE hyperparameter sweep — the reference's qsub grid, on one device.
 
 Enumerates the WSDM'16 paper grid exactly as the reference sweep script
 (ref apps/yelp/cdae.sh:3-36: scale x user_factor x cratio{0..1} x linear x
@@ -42,11 +42,11 @@ def main() -> int:
 
         jax.config.update("jax_platforms", args.platform)
 
-    from cdae_tpu.data import io as data_io
-    from cdae_tpu.sweep import run_sweep
+    from cdae_jax.data import io as data_io
+    from cdae_jax.sweep import run_sweep
 
     if args.synthetic or not args.cache_file:
-        from cdae_tpu.data.synthetic import lowrank_interactions
+        from cdae_jax.data.synthetic import lowrank_interactions
 
         data = lowrank_interactions(args.users, args.items, args.degree,
                                     seed=args.seed)

@@ -5,12 +5,12 @@ import os
 import numpy as np
 import pytest
 
-from cdae_tpu.cli import main
-from cdae_tpu.data import io as data_io
-from cdae_tpu.data.dataset import Interactions, movielens_line_parser
-from cdae_tpu.models.cdae import CDAE, CDAEConfig
-from cdae_tpu.models.mf import IMF, MFConfig
-from cdae_tpu.utils import checkpoint as ckpt
+from cdae_jax.cli import main
+from cdae_jax.data import io as data_io
+from cdae_jax.data.dataset import Interactions, movielens_line_parser
+from cdae_jax.models.cdae import CDAE, CDAEConfig
+from cdae_jax.models.mf import IMF, MFConfig
+from cdae_jax.utils import checkpoint as ckpt
 
 
 def test_cli_prepare_split_train(tmp_path, movielens_path):
@@ -128,7 +128,7 @@ def test_exact_resume_bitwise(tmp_path, movielens_path):
     accumulators + step + the solver's PRNG stream (VERDICT r1 item 8;
     capability superset of ref serialize.hpp:16-46, which never
     checkpoints models at all)."""
-    from cdae_tpu.solver.solver import Solver
+    from cdae_jax.solver.solver import Solver
 
     data = Interactions.from_text(movielens_path, movielens_line_parser)
     train, test = data.split_by_user(0.2, seed=1)
@@ -160,10 +160,10 @@ def test_exact_resume_sharded_tp(tmp_path, movielens_path):
     P('model') tables round-trip through the checkpoint and the resumed
     run matches an unbroken one (up to the trainer's own float summation
     order, which is deterministic — so bitwise)."""
-    from cdae_tpu.models.mf import BPR, MFConfig
-    from cdae_tpu.parallel.mesh import make_mesh
-    from cdae_tpu.parallel.tp_pairwise import ShardedMFTP
-    from cdae_tpu.solver.solver import Solver
+    from cdae_jax.models.mf import BPR, MFConfig
+    from cdae_jax.parallel.mesh import make_mesh
+    from cdae_jax.parallel.tp_pairwise import ShardedMFTP
+    from cdae_jax.solver.solver import Solver
 
     data = Interactions.from_text(movielens_path, movielens_line_parser)
     train, test = data.split_by_user(0.2, seed=1)
@@ -192,7 +192,7 @@ def test_exact_resume_sharded_tp(tmp_path, movielens_path):
 def test_resume_rejects_config_mismatch(tmp_path, movielens_path):
     """A checkpoint written under one config refuses to resume another
     (fingerprint covers model class + config + data dims)."""
-    from cdae_tpu.solver.solver import Solver
+    from cdae_jax.solver.solver import Solver
 
     data = Interactions.from_text(movielens_path, movielens_line_parser)
     train, test = data.split_by_user(0.2, seed=1)
@@ -213,8 +213,8 @@ def test_resume_rejects_config_mismatch(tmp_path, movielens_path):
 def test_sharded_checkpoint_roundtrip(tmp_path, movielens_path):
     """Orbax sharded checkpoint preserves values + shardings on a mesh."""
     import jax
-    from cdae_tpu.parallel.mesh import make_mesh
-    from cdae_tpu.parallel.sharded import shard_cdae_state
+    from cdae_jax.parallel.mesh import make_mesh
+    from cdae_jax.parallel.sharded import shard_cdae_state
 
     rng = np.random.default_rng(0)
     pairs = np.unique(rng.integers(0, 32 * 64, 500))
@@ -222,8 +222,7 @@ def test_sharded_checkpoint_roundtrip(tmp_path, movielens_path):
         (pairs // 64).astype(np.int32), (pairs % 64).astype(np.int32),
         num_users=32, num_items=64,
     )
-    model = CDAE(CDAEConfig(num_dim=8, batch_size=32, loss="SQUARE",
-                            use_pallas=False))
+    model = CDAE(CDAEConfig(num_dim=8, batch_size=32, loss="SQUARE"))
     mesh = make_mesh(n_data=4, n_model=2)
     state = model.reset(train, seed=0)
     state.params = shard_cdae_state(mesh, state.params)
@@ -248,8 +247,8 @@ def test_sharded_checkpoint_exact_resume(tmp_path, movielens_path):
     into a fresh state, train epoch 3 — identical to never having stopped.
     Fingerprint mismatch refuses to resume, like the npz format."""
     import jax
-    from cdae_tpu.parallel.mesh import make_mesh
-    from cdae_tpu.parallel.trainer import ShardedCDAE
+    from cdae_jax.parallel.mesh import make_mesh
+    from cdae_jax.parallel.trainer import ShardedCDAE
 
     rng = np.random.default_rng(1)
     pairs = np.unique(rng.integers(0, 32 * 64, 600))
@@ -259,7 +258,7 @@ def test_sharded_checkpoint_exact_resume(tmp_path, movielens_path):
     )
     mesh = make_mesh(n_data=4, n_model=2)
     cfg = CDAEConfig(num_dim=8, batch_size=16, loss="SQUARE",
-                     corruption_ratio=0.2, num_neg=2, use_pallas=False)
+                     corruption_ratio=0.2, num_neg=2)
 
     def fresh():
         m = ShardedCDAE(cfg, mesh=mesh)
@@ -294,7 +293,7 @@ def test_sharded_checkpoint_exact_resume(tmp_path, movielens_path):
 def test_sweep_paper_grid_matches_reference_script():
     """paper_grid must enumerate ref apps/yelp/cdae.sh:3-25 exactly:
     192 points, loops nested in script order (LOSS innermost)."""
-    from cdae_tpu.sweep import paper_grid
+    from cdae_jax.sweep import paper_grid
 
     grid = list(paper_grid())
     assert len(grid) == 2 * 2 * 6 * 2 * 2 * 2
@@ -307,7 +306,7 @@ def test_sweep_paper_grid_matches_reference_script():
     assert len(keys) == len(grid)
 
 
-def test_cli_warp_pool_and_tpu_knobs(tmp_path, movielens_path):
+def test_cli_warp_pool_and_build_knobs(tmp_path, movielens_path):
     """--warp_pool / --num_shared_neg / --epoch_chunk reach MFConfig from
     the CLI; warp_pool runs in the CSR (no dense mask) regime."""
     cache = str(tmp_path / "ml.bin")

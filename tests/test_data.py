@@ -10,13 +10,13 @@ import os
 import numpy as np
 import pytest
 
-from cdae_tpu.data import io
-from cdae_tpu.data.dataset import (
+from cdae_jax.data import io
+from cdae_jax.data.dataset import (
     Interactions,
     default_line_parser,
     movielens_line_parser,
 )
-from cdae_tpu.data.vocab import Vocab
+from cdae_jax.data.vocab import Vocab
 
 
 def test_vocab_roundtrip():
@@ -140,7 +140,7 @@ def test_config_file_roundtrip(tmp_path):
 
 
 def test_load_dense_vectors(tmp_path):
-    from cdae_tpu.data import io as dio
+    from cdae_jax.data import io as dio
     p = tmp_path / "vec.txt"
     p.write_text("1.0 2.0 3.0\n\n4.5 5.5 6.5\n")
     m = dio.load_dense_vectors(str(p))
@@ -148,7 +148,7 @@ def test_load_dense_vectors(tmp_path):
 
 
 def test_load_libsvm(tmp_path):
-    from cdae_tpu.data import io as dio
+    from cdae_jax.data import io as dio
     p = tmp_path / "data.svm"
     p.write_text("1 0:0.5 3:2.0\n-1 2:1.0\n")
     gi = dio.load_libsvm(str(p))
@@ -182,7 +182,7 @@ def test_split_by_user_vectorized_path():
 def test_describe_schema_printer(movielens_path):
     """describe() prints schema + head like the reference Data printer
     (ref src/base/data-inl.hpp:82-105: dims, group sizes, head rows)."""
-    from cdae_tpu.data.dataset import movielens_line_parser
+    from cdae_jax.data.dataset import movielens_line_parser
 
     data = Interactions.from_text(movielens_path, movielens_line_parser)
     out = data.describe(head=3)

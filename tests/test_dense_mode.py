@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cdae_tpu.data.dataset import Interactions, movielens_line_parser
-from cdae_tpu.evaluation import Evaluation
-from cdae_tpu.models.cdae import CDAE, CDAEConfig
-from cdae_tpu.models.base import iter_user_batches
-from cdae_tpu.solver.solver import Solver
+from cdae_jax.data.dataset import Interactions, movielens_line_parser
+from cdae_jax.evaluation import Evaluation
+from cdae_jax.models.cdae import CDAE, CDAEConfig
+from cdae_jax.models.base import iter_user_batches
+from cdae_jax.solver.solver import Solver
 
 
 @pytest.fixture(scope="module")
@@ -17,13 +17,28 @@ def data(movielens_path):
     return Interactions.from_text(movielens_path, movielens_line_parser)
 
 
-def test_dense_step_matches_sparse_no_corruption(data):
+# tanh's 1 - z² derivative near saturation magnifies the f32 summation-
+# order difference of the two encodes (gather-sum vs matmul), and the first
+# AdaGrad step from the 1e-4 init passes it on nearly unscaled
+_TOL = dict(rtol=2e-5, atol=1e-6)
+_TANH_TOL = dict(rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("variant,tol", [
+    (dict(loss="SQUARE"), _TOL),
+    (dict(loss="CE"), _TOL),
+    (dict(loss="SQUARE", tanh=True), _TANH_TOL),
+    (dict(loss="SQUARE", linear=True), _TOL),
+    (dict(loss="SQUARE", asymmetric=True), _TOL),
+    (dict(loss="SQUARE", user_factor=False), _TOL),
+], ids=["square", "ce", "tanh", "linear", "asymmetric", "no_user_factor"])
+def test_dense_step_matches_sparse_no_corruption(data, variant, tol):
     """With corruption off and no negatives, the dense and sparse steps are
     the SAME deterministic math — params must match to float tolerance."""
     train, _ = data.split_by_user(0.2, seed=3)
-    cfg = dict(num_dim=8, loss="SQUARE", corruption_ratio=0.0, num_neg=0,
+    cfg = dict(num_dim=8, corruption_ratio=0.0, num_neg=0,
                learn_rate=0.1, lambda_=0.01, batch_size=16,
-               use_pallas=False, bucket_by_length=False)
+               bucket_by_length=False, **variant)
     m_sparse = CDAE(CDAEConfig(dense_mode=False, **cfg))
     m_dense = CDAE(CDAEConfig(dense_mode=True, **cfg))
     s_sparse = m_sparse.reset(train, seed=0)
@@ -41,18 +56,18 @@ def test_dense_step_matches_sparse_no_corruption(data):
         s_dense.aux["dense_R"],
         jnp.asarray(b.uids), jnp.asarray(b.weight), key,
     )
+    assert set(p_dense) == set(p_sparse)
     for k in p_sparse:
         np.testing.assert_allclose(
             np.asarray(p_dense[k]), np.asarray(p_sparse[k]),
-            rtol=2e-5, atol=1e-6, err_msg=k,
+            err_msg=k, **tol,
         )
 
 
 def test_dense_mode_learns(data):
     train, test = data.split_by_user(0.2, seed=20141119)
     model = CDAE(CDAEConfig(num_dim=10, loss="SQUARE", corruption_ratio=0.2,
-                            num_neg=5, batch_size=32, dense_mode=True,
-                            use_pallas=False))
+                            num_neg=5, batch_size=32, dense_mode=True))
     state = model.reset(train, seed=1)
     assert "dense_R" in state.aux
     state = model.train_epochs(state, 15, jax.random.PRNGKey(1))
@@ -62,11 +77,10 @@ def test_dense_mode_learns(data):
 
 def test_dense_mode_auto_threshold(data):
     train, _ = data.split_by_user(0.2, seed=1)
-    m_auto = CDAE(CDAEConfig(num_dim=4, batch_size=16, use_pallas=False))
+    m_auto = CDAE(CDAEConfig(num_dim=4, batch_size=16))
     s = m_auto.reset(train)
     assert "dense_R" in s.aux  # tiny data -> dense auto-on
-    m_off = CDAE(CDAEConfig(num_dim=4, batch_size=16, dense_mode=False,
-                            use_pallas=False))
+    m_off = CDAE(CDAEConfig(num_dim=4, batch_size=16, dense_mode=False))
     s2 = m_off.reset(train)
     assert "dense_R" not in s2.aux
 
@@ -74,8 +88,7 @@ def test_dense_mode_auto_threshold(data):
 def test_dense_solver_end_to_end(data):
     train, test = data.split_by_user(0.2, seed=20141119)
     model = CDAE(CDAEConfig(num_dim=8, loss="SQUARE", corruption_ratio=0.2,
-                            num_neg=3, batch_size=32, dense_mode=True,
-                            use_pallas=False))
+                            num_neg=3, batch_size=32, dense_mode=True))
     solver = Solver(model, max_iteration=8, eval_iterations=8, seed=2,
                     verbose=False)
     solver.train(train, test, ["TOPN"])
@@ -90,8 +103,7 @@ def test_dense_variants(data):
                     dict(tanh=True), dict(user_factor=False)):
         model = CDAE(CDAEConfig(num_dim=6, loss="SQUARE",
                                 corruption_ratio=0.3, num_neg=2,
-                                batch_size=32, dense_mode=True,
-                                use_pallas=False, **variant))
+                                batch_size=32, dense_mode=True, **variant))
         state = model.reset(train, seed=0)
         state = model.train_one_iteration(state, jax.random.PRNGKey(0))
         assert np.isfinite(model.data_loss(state))
@@ -99,8 +111,8 @@ def test_dense_variants(data):
 
 def test_dense_imf_pmf(data):
     """Dense-mode IMF/PMF train and learn; BPR stays sparse."""
-    from cdae_tpu.models.mf import BPR, IMF, MFConfig, PMF
-    from cdae_tpu.solver.solver import Solver
+    from cdae_jax.models.mf import BPR, IMF, MFConfig, PMF
+    from cdae_jax.solver.solver import Solver
 
     train, test = data.split_by_user(0.2, seed=20141119)
     model = IMF(MFConfig(num_dim=10, num_neg=5, batch_size=64,
@@ -127,17 +139,16 @@ def test_dense_imf_pmf(data):
 def test_batch_topk_streaming_matches_scores_path(data):
     """CDAE.batch_topk (streaming) must equal the dense-scores top-10."""
     train, test = data.split_by_user(0.2, seed=20141119)
-    model = CDAE(CDAEConfig(num_dim=8, loss="SQUARE", batch_size=32,
-                            use_pallas=False, dense_mode=False))
+    model = CDAE(CDAEConfig(num_dim=8, loss="SQUARE", batch_size=32, dense_mode=False))
     state = model.reset(train, seed=1)
     pb = state.padded
     uids = np.arange(8)
     ri, rm = pb.items[uids], pb.mask[uids]
     # force the streaming branch regardless of catalog size
-    from cdae_tpu.ops.pallas_kernels import streaming_topk_scores
-    from cdae_tpu.models.cdae import _hidden
+    from cdae_jax.ops.topk import streaming_topk_scores
+    from cdae_jax.models.cdae import _hidden
     import jax.numpy as jnp
-    from cdae_tpu.ops.topk import topk_unrated
+    from cdae_jax.ops.topk import topk_unrated
 
     scores = model.batch_scores(state, uids, ri, rm)
     ids_ref, _ = topk_unrated(scores, jnp.asarray(ri), 10)
@@ -151,73 +162,6 @@ def test_batch_topk_streaming_matches_scores_path(data):
     assert model.batch_topk(state, uids, ri, rm) is None
 
 
-def test_batch_topk_fused_csr_path(data, monkeypatch):
-    """The fused_csr serving mode (host-built per-block query lists,
-    id-keyed qd cache, overflow -> streaming reroute) returns exactly the
-    dense-scores top-10 at fixture scale (interpret-mode kernel)."""
-    import jax.numpy as jnp
-    import cdae_tpu.models.cdae as cdae_mod
-    from cdae_tpu.ops.topk import topk_unrated
-
-    # rows must hold <= w (8) rated per catalog block for the fused path:
-    # at fixture scale the clamped block spans the whole catalog, so per-
-    # user rated count IS the per-block count
-    from cdae_tpu.data.dataset import Interactions
-
-    rng = np.random.default_rng(4)
-    users, items = [], []
-    for u in range(8):
-        for i in np.sort(rng.choice(300, 6, replace=False)):
-            users.append(u)
-            items.append(i)
-    train = Interactions.from_arrays(
-        np.asarray(users, np.int32), np.asarray(items, np.int32),
-        num_users=8, num_items=300,
-    )
-    model = CDAE(CDAEConfig(num_dim=8, loss="SQUARE", batch_size=32,
-                            use_pallas=True, dense_mode=False))
-    state = model.reset(train, seed=1)
-    monkeypatch.setattr(cdae_mod, "_TOPK_DEFER_CELLS", 0)
-    pb = state.padded
-    uids = np.arange(8)
-    ri, rm = jnp.asarray(pb.items[uids]), jnp.asarray(pb.mask[uids])
-    scores = model.batch_scores(state, uids, pb.items[uids], pb.mask[uids])
-    ids_ref, _ = topk_unrated(scores, ri, 10)
-    ids = model.batch_topk(state, uids, ri, rm)
-    np.testing.assert_array_equal(np.asarray(ids), np.asarray(ids_ref))
-    # qd cache: same batch object -> hit (one entry, same ref)
-    assert len(model._qd_cache) == 1
-    ent = next(iter(model._qd_cache.values()))
-    assert ent[0] is ri and not ent[2]
-    ids2 = model.batch_topk(state, uids, ri, rm)
-    np.testing.assert_array_equal(np.asarray(ids2), np.asarray(ids_ref))
-    assert len(model._qd_cache) == 1
-    # moderately clustered batch: auto-w sizes up (pow2 >= 12) instead of
-    # overflowing — still exact, still the fused path
-    L = 12
-    ri_c = np.full((8, L), train.num_items, np.int32)
-    ri_c[0, :L] = np.arange(L)  # 12 contiguous ids in one block
-    rm_c = ri_c < train.num_items
-    scores_c = model.batch_scores(state, uids, ri_c, rm_c)
-    ids_cref, _ = topk_unrated(scores_c, jnp.asarray(ri_c), 10)
-    ri_cj = jnp.asarray(ri_c)
-    ids_c = model.batch_topk(state, uids, ri_cj, jnp.asarray(rm_c))
-    np.testing.assert_array_equal(np.asarray(ids_c), np.asarray(ids_cref))
-    ent_c = model._qd_cache[id(ri_cj)]
-    assert not ent_c[2] and ent_c[3] == 16  # auto-sized w, no overflow
-    # pathological clustering past the w cap (64) -> exact via streaming
-    L = 70
-    ri_o = np.full((8, L), train.num_items, np.int32)
-    ri_o[0, :L] = np.arange(L)
-    rm_o = ri_o < train.num_items
-    scores_o = model.batch_scores(state, uids, ri_o, rm_o)
-    ids_oref, _ = topk_unrated(scores_o, jnp.asarray(ri_o), 10)
-    ri_oj = jnp.asarray(ri_o)
-    ids_o = model.batch_topk(state, uids, ri_oj, jnp.asarray(rm_o))
-    np.testing.assert_array_equal(np.asarray(ids_o), np.asarray(ids_oref))
-    assert model._qd_cache[id(ri_oj)][2]  # flagged overflow
-
-
 def test_dense_mode_bf16_slabs_learn(data):
     """compute_dtype=bf16 keeps every (B, I) slab in bf16 (masks exact,
     gradient slab rounded) — training lands in the same recall ballpark
@@ -228,7 +172,7 @@ def test_dense_mode_bf16_slabs_learn(data):
         model = CDAE(CDAEConfig(num_dim=10, loss="SQUARE",
                                 corruption_ratio=0.2, num_neg=5,
                                 batch_size=32, dense_mode=True,
-                                compute_dtype=cdt, use_pallas=False))
+                                compute_dtype=cdt))
         state = model.reset(train, seed=1)
         state = model.train_epochs(state, 15, jax.random.PRNGKey(1))
         r = Evaluation.create("TOPN").evaluate(model, state, test, train)

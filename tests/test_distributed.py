@@ -14,12 +14,12 @@ import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 import jax
 jax.config.update("jax_platforms", "cpu")
-from cdae_tpu.parallel.distributed import initialize
+from cdae_jax.parallel.distributed import initialize
 assert initialize() is True
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
-from cdae_tpu.parallel.mesh import make_mesh
+from cdae_jax.parallel.mesh import make_mesh
 
 assert jax.process_count() == 2
 assert len(jax.devices()) == 4  # 2 procs x 2 local cpu devices
@@ -32,17 +32,16 @@ total = jax.jit(lambda a: jnp.sum(a))(xs)
 np.testing.assert_allclose(float(total), 64.0)
 
 # sharded CDAE train step across the 2-process mesh
-from cdae_tpu.models.cdae import CDAE, CDAEConfig
-from cdae_tpu.parallel.sharded import (
+from cdae_jax.models.cdae import CDAE, CDAEConfig
+from cdae_jax.parallel.sharded import (
     make_batch, make_sharded_train_step, shard_cdae_state)
-from cdae_tpu.data.dataset import Interactions
+from cdae_jax.data.dataset import Interactions
 rng = np.random.default_rng(0)
 pairs = np.unique(rng.integers(0, 32 * 64, 400))
 data = Interactions.from_arrays((pairs // 64).astype(np.int32),
                                 (pairs % 64).astype(np.int32),
                                 num_users=32, num_items=64)
-model = CDAE(CDAEConfig(num_dim=16, loss="SQUARE", batch_size=16,
-                        use_pallas=False))
+model = CDAE(CDAEConfig(num_dim=16, loss="SQUARE", batch_size=16))
 state = model.reset(data, seed=0)
 params = shard_cdae_state(mesh, state.params)
 step = make_sharded_train_step(model, mesh, params)
@@ -55,8 +54,8 @@ jax.block_until_ready(out)
 # item-sharded TP pairwise epoch: iv/ib blocks live on DIFFERENT processes,
 # so the psum row-gathers and contribution all-gathers cross the process
 # boundary (parallel/tp_pairwise.ShardedMFTP)
-from cdae_tpu.models.mf import BPR, MFConfig
-from cdae_tpu.parallel.tp_pairwise import ShardedMFTP
+from cdae_jax.models.mf import BPR, MFConfig
+from cdae_jax.parallel.tp_pairwise import ShardedMFTP
 tp = ShardedMFTP(BPR(MFConfig(num_dim=8, num_neg=2, batch_size=16,
                               dense_mode=False)), mesh=mesh)
 tstate = tp.reset(data, seed=0)
@@ -74,19 +73,19 @@ import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 import jax
 jax.config.update("jax_platforms", "cpu")
-from cdae_tpu.parallel.distributed import initialize
+from cdae_jax.parallel.distributed import initialize
 assert initialize() is True
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import multihost_utils
 
-from cdae_tpu.data.dataset import Interactions
-from cdae_tpu.models.cdae import CDAE, CDAEConfig, _batch_scores
-from cdae_tpu.ops.metrics import topn_user_metrics
-from cdae_tpu.ops.topk import topk_unrated
-from cdae_tpu.parallel.mesh import make_mesh
-from cdae_tpu.parallel.trainer import ShardedCDAE
-from cdae_tpu.utils import checkpoint as ckpt
+from cdae_jax.data.dataset import Interactions
+from cdae_jax.models.cdae import CDAE, CDAEConfig, _batch_scores
+from cdae_jax.ops.metrics import topn_user_metrics
+from cdae_jax.ops.topk import topk_unrated
+from cdae_jax.parallel.mesh import make_mesh
+from cdae_jax.parallel.trainer import ShardedCDAE
+from cdae_jax.utils import checkpoint as ckpt
 
 assert jax.process_count() == 2
 
@@ -108,7 +107,7 @@ train, val = all_data.split_by_user(0.2, seed=20141119)
 # sparse step — different formulations, no trajectory match
 cfg = CDAEConfig(num_dim=8, loss="SQUARE", corruption_ratio=0.2, num_neg=2,
                  batch_size=16, neg_pool=128, packed_io=True,
-                 stream_batches=True, use_pallas=False, dense_mode=False)
+                 stream_batches=True, dense_mode=False)
 EPOCHS = 3
 key = jax.random.PRNGKey(5)
 keys = jax.random.split(key, EPOCHS + 1)
@@ -118,7 +117,7 @@ def recall10(params_np):
     params = {k: jnp.asarray(v) for k, v in params_np.items()}
     tcsr = train.csr()
     vcsr = val.csr()
-    from cdae_tpu.data.dataset import rows_from_csr
+    from cdae_jax.data.dataset import rows_from_csr
     uids = np.arange(U, dtype=np.int32)
     r_items, _, r_mask, _ = rows_from_csr(tcsr, uids, I)
     v_items, _, v_mask, _ = rows_from_csr(vcsr, uids, I)

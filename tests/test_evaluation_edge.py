@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from cdae_tpu.data.dataset import Interactions
-from cdae_tpu.evaluation import Evaluation
-from cdae_tpu.models.popularity import Popularity
+from cdae_jax.data.dataset import Interactions
+from cdae_jax.evaluation import Evaluation
+from cdae_jax.models.popularity import Popularity
 
 
 def test_empty_validation():

@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cdae_tpu.data.dataset import Interactions, movielens_line_parser
-from cdae_tpu.data.instances import GroupedInstances
-from cdae_tpu.models.fism import FISM, FISMConfig, FISMPair
-from cdae_tpu.models.linear import (
+from cdae_jax.data.dataset import Interactions, movielens_line_parser
+from cdae_jax.data.instances import GroupedInstances
+from cdae_jax.models.fism import FISM, FISMConfig, FISMPair
+from cdae_jax.models.linear import (
     FactorModel, FactorModelConfig, LinearModel, LinearModelConfig, NegMF,
 )
-from cdae_tpu.models.linear import _fm_forward
-from cdae_tpu.solver.solver import SGDSolver, Solver
+from cdae_jax.models.linear import _fm_forward
+from cdae_jax.solver.solver import SGDSolver, Solver
 
 
 @pytest.fixture(scope="module")
@@ -117,7 +117,7 @@ def test_data_loss_sample_size(splits):
     assert model.current_loss(state, 10) == pytest.approx(
         sub + model.penalty_loss(state))
     # accept-and-ignore surface (ref cdae.hpp:78, neg_mf.hpp:64)
-    from cdae_tpu.models.cdae import CDAE, CDAEConfig
+    from cdae_jax.models.cdae import CDAE, CDAEConfig
     cmodel = CDAE(CDAEConfig(num_dim=4, batch_size=32))
     cstate = cmodel.reset(train, seed=0)
     assert cmodel.data_loss(cstate, 10) == pytest.approx(
@@ -171,9 +171,9 @@ def test_fism_pair_gradients_match_autodiff(splits):
     import jax
     import jax.numpy as jnp
 
-    from cdae_tpu.models.fism import FISMPair, _fism_pair_step, _scales
-    from cdae_tpu.ops import sampling
-    from cdae_tpu.ops.losses import Loss
+    from cdae_jax.models.fism import FISMPair, _fism_pair_step, _scales
+    from cdae_jax.ops import sampling
+    from cdae_jax.ops.losses import Loss
 
     train, _ = splits
     cfg_kw = dict(num_dim=4, num_neg=2, loss="LOG", lambda_=0.0,
@@ -276,8 +276,8 @@ def test_fism_dense_step_gradients_match_autodiff(splits):
     import jax
     import jax.numpy as jnp
 
-    from cdae_tpu.models.fism import FISM, _fism_dense_step, _scales
-    from cdae_tpu.ops.losses import Loss
+    from cdae_jax.models.fism import FISM, _fism_dense_step, _scales
+    from cdae_jax.ops.losses import Loss
 
     train, _ = splits
     cfg = FISMConfig(num_dim=4, num_neg=2, loss="SQUARE", lambda_=0.0,
@@ -332,7 +332,7 @@ def test_fism_dense_learns_and_matches_sparse_quality(splits):
     """Dense-slab FISM reaches the same metric neighborhood as the sparse
     path at equal epochs (Bernoulli negatives, same expected touches)."""
     train, test = splits
-    from cdae_tpu.evaluation import Evaluation
+    from cdae_jax.evaluation import Evaluation
 
     ev = Evaluation.create("TOPN")
     out = {}
@@ -355,8 +355,8 @@ def test_negmf_dense_step_gradients_match_autodiff(splits):
     import jax
     import jax.numpy as jnp
 
-    from cdae_tpu.models.linear import _negmf_dense_step
-    from cdae_tpu.ops.losses import Loss
+    from cdae_jax.models.linear import _negmf_dense_step
+    from cdae_jax.ops.losses import Loss
 
     train, _ = splits
     cfg = FactorModelConfig(num_dim=4, num_neg=2, loss="LOG", lambda_=0.0,
@@ -417,7 +417,7 @@ def test_recommend_api_excludes_rated(splits):
     """RecsysModel.recommend (ref recsys_model_base.hpp:77-104): top-k ids
     never include the user's rated items and match a manual masked top-k
     of batch_scores."""
-    from cdae_tpu.models.mf import IMF, MFConfig
+    from cdae_jax.models.mf import IMF, MFConfig
 
     train, _ = splits
     model = IMF(MFConfig(num_dim=6, num_neg=2, batch_size=64))
@@ -432,7 +432,7 @@ def test_recommend_api_excludes_rated(splits):
         rated = set(pb.items[u][pb.mask[u]].tolist())
         assert not (set(r.tolist()) & rated), f"user {u} got rated items"
     # manual masked top-k agrees
-    from cdae_tpu.ops.topk import topk_unrated
+    from cdae_jax.ops.topk import topk_unrated
 
     scores = model.batch_scores(state, uids, pb.items[uids], pb.mask[uids])
     want, _ = topk_unrated(jnp.asarray(scores), jnp.asarray(pb.items[uids]), 5)

@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cdae_tpu.data.dataset import Interactions, movielens_line_parser
-from cdae_tpu.models.als import ALS, ALSConfig, WRMF
-from cdae_tpu.models.mf import BPR, IMF, MFConfig, PMF, WARP
-from cdae_tpu.models.popularity import Popularity
-from cdae_tpu.models.similarity import (
+from cdae_jax.data.dataset import Interactions, movielens_line_parser
+from cdae_jax.models.als import ALS, ALSConfig, WRMF
+from cdae_jax.models.mf import BPR, IMF, MFConfig, PMF, WARP
+from cdae_jax.models.popularity import Popularity
+from cdae_jax.models.similarity import (
     ItemCF, SimilarityConfig, UserCF, build_topk_neighbors,
 )
-from cdae_tpu.solver.solver import Solver
+from cdae_jax.solver.solver import Solver
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +47,7 @@ def test_popularity_batch_topk_matches_masked_topk(splits):
     popularity.hpp:23-41) equals the full masked top-k, incl. a heavy
     user and an all-rated user (exhausted -> cond fallback)."""
     import jax.numpy as jnp
-    from cdae_tpu.ops.topk import topk_unrated
+    from cdae_jax.ops.topk import topk_unrated
 
     rng = np.random.default_rng(2)
     U, I, L = 12, 200, 150
@@ -171,13 +171,51 @@ def test_warp_dense_slab_learns(splits):
     assert hist[-1]["R@10"] > 0.3
 
 
+def test_warp_violators_match_bruteforce():
+    """The dense path's violator mask and counts equal a per-(user, item)
+    loop: unrated j with ib_j + uv·iv_j > s(u,i) - 1 (ref warp.hpp:63-79)."""
+    from cdae_jax.models.mf import _warp_violators
+
+    rng = np.random.default_rng(9)
+    B, I, D = 7, 53, 5
+    uv = rng.standard_normal((B, D)).astype(np.float32)
+    iv = rng.standard_normal((I, D)).astype(np.float32)
+    ib = rng.standard_normal(I).astype(np.float32)
+    i = rng.integers(0, I, B).astype(np.int32)
+    mask = rng.integers(0, 2, (B, I)).astype(np.int8)
+    viol, nviol = _warp_violators(jnp.asarray(uv), jnp.asarray(iv),
+                                  jnp.asarray(ib), jnp.asarray(i),
+                                  jnp.asarray(mask))
+    ref = np.zeros((B, I), bool)
+    for b in range(B):
+        yui = ib[i[b]] + uv[b] @ iv[i[b]]
+        for j in range(I):
+            ref[b, j] = mask[b, j] == 0 and ib[j] + uv[b] @ iv[j] > yui - 1.0
+    np.testing.assert_array_equal(np.asarray(viol), ref)
+    np.testing.assert_array_equal(np.asarray(nviol), ref.sum(1))
+
+
+def test_warp_dense_violator_path_learns(splits):
+    """Default WARP at a catalog whose (U, I) rated mask fits: the dense
+    violator path (count, geometric tries, rank-select) trains."""
+    train, test = splits
+    model = WARP(MFConfig(num_dim=10, num_neg=3, loss="HINGE", beta=0.0,
+                          lambda_=0.1, batch_size=64))
+    solver = Solver(model, max_iteration=10, eval_iterations=10, seed=3,
+                    verbose=False)
+    solver.train(train, test, ["TOPN"])
+    hist = solver.history
+    assert "rated_mask" in solver.state.aux  # the dense violator path
+    assert np.isfinite(hist[-1]["train_loss"])
+    assert hist[-1]["R@10"] > hist[0]["R@10"]
+
+
 def test_warp_pool_path_learns(splits):
     """Pooled per-instance candidate path (MFConfig.warp_pool without
     dense_mode): same closed-form rejection process against pool
     violators."""
     model = WARP(MFConfig(num_dim=10, num_neg=3, loss="HINGE", beta=0.0,
-                          lambda_=0.1, batch_size=64, warp_pool=128,
-                          use_pallas=False))
+                          lambda_=0.1, batch_size=64, warp_pool=128))
     hist = _topn(model, splits, iters=10)
     assert hist[-1]["R@10"] > hist[0]["R@10"]
 
@@ -250,7 +288,7 @@ def test_bpr_chunked_epoch_matches_fused(splits):
 def test_row_update_matches_dense_apply_no_duplicates():
     """With no duplicate touched rows in a batch, touched-rows delta
     AdaGrad == dense accumulate-then-apply (same math, same order)."""
-    from cdae_tpu.models.mf import (
+    from cdae_jax.models.mf import (
         MFConfig, _pairwise_apply, _init_mf_params)
 
     cfg_dense = MFConfig(num_dim=6, num_neg=2, row_update=False, loss="LOG")
@@ -263,10 +301,10 @@ def test_row_update_matches_dense_apply_no_duplicates():
     j = (B + jnp.arange(B * 2, dtype=jnp.int32)).reshape(B, 2)
     w = jnp.ones((B, 2), jnp.float32)
     out_d = _pairwise_apply(dict(params), u, i, j, w, cfg_dense,
-                            __import__("cdae_tpu.ops.losses",
+                            __import__("cdae_jax.ops.losses",
                                        fromlist=["Loss"]).Loss.create("LOG"))
     out_r = _pairwise_apply(dict(params), u, i, j, w, cfg_row,
-                            __import__("cdae_tpu.ops.losses",
+                            __import__("cdae_jax.ops.losses",
                                        fromlist=["Loss"]).Loss.create("LOG"))
     for k in out_d:
         np.testing.assert_allclose(np.asarray(out_d[k]),
@@ -324,7 +362,7 @@ def test_warp_pool_csr_matches_mask_path(splits):
     advertised contract of MFConfig.warp_pool in both regimes."""
     train, _ = splits
     base = dict(num_dim=8, num_neg=3, loss="HINGE", beta=0.0,
-                lambda_=0.1, batch_size=64, warp_pool=64, use_pallas=False)
+                lambda_=0.1, batch_size=64, warp_pool=64)
     runs = []
     for dense_mode in (None, False):  # auto mask vs forced CSR
         model = WARP(MFConfig(dense_mode=dense_mode, **base))
@@ -345,7 +383,7 @@ def test_bpr_dense_shared_negs_rescue_draw(splits):
     (lax.cond), so even a 97%-dense user at num_shared_neg=1 updates every
     step (pre-ADVICE-r3 the all-rated-draws case dropped the user)."""
     import functools
-    from cdae_tpu.models.mf import BPR as _BPR
+    from cdae_jax.models.mf import BPR as _BPR
 
     I, B, M = 64, 4, 1
     rng = np.random.default_rng(3)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from cdae_tpu import _native
-from cdae_tpu.data.dataset import (
+from cdae_jax import _native
+from cdae_jax.data.dataset import (
     Interactions, default_line_parser, movielens_line_parser,
 )
 
@@ -83,8 +83,8 @@ def test_native_dynamic_parallel_for_covers_range_and_raises():
     utils wrapper routes through it."""
     import numpy as np
 
-    from cdae_tpu import _native
-    from cdae_tpu.utils.parallel import dynamic_parallel_for
+    from cdae_jax import _native
+    from cdae_jax.utils.parallel import dynamic_parallel_for
 
     if not _native.available():
         import pytest

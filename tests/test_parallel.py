@@ -7,15 +7,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cdae_tpu.data.dataset import Interactions
-from cdae_tpu.models.cdae import CDAE, CDAEConfig
-from cdae_tpu.ops.topk import topk_unrated
-from cdae_tpu.parallel.mesh import make_mesh, cdae_param_specs
-from cdae_tpu.parallel.sharded import (
+from cdae_jax.data.dataset import Interactions
+from cdae_jax.models.cdae import CDAE, CDAEConfig
+from cdae_jax.ops.topk import topk_unrated
+from cdae_jax.parallel.mesh import make_mesh, cdae_param_specs
+from cdae_jax.parallel.sharded import (
     make_batch, make_sharded_scores, make_sharded_train_step,
     shard_cdae_state,
 )
-from cdae_tpu.parallel.topk import distributed_topk_unrated
+from cdae_jax.parallel.topk import distributed_topk_unrated
 
 
 def _tiny(num_users=32, num_items=64, seed=0):
@@ -126,15 +126,15 @@ def test_graft_entry_contract():
 def test_sharded_trainer_end_to_end(mesh):
     """ShardedCDAE through the full Solver loop matches the single-chip CDAE
     trajectory (same batches, same rng) on the fake 8-device mesh."""
-    from cdae_tpu.parallel.trainer import ShardedCDAE
-    from cdae_tpu.solver.solver import Solver
+    from cdae_jax.parallel.trainer import ShardedCDAE
+    from cdae_jax.solver.solver import Solver
 
     data = _tiny(num_users=48, num_items=64, seed=2)
     train, test = data.split_by_user(0.25, seed=9)
     # dense_mode off: the sharded trainer runs the sparse step, so the
     # single-chip reference must too for a trajectory match
     cfg = CDAEConfig(num_dim=16, loss="SQUARE", corruption_ratio=0.3,
-                     num_neg=2, batch_size=16, use_pallas=False,
+                     num_neg=2, batch_size=16,
                      dense_mode=False)
 
     ref_solver = Solver(CDAE(cfg), max_iteration=3, eval_iterations=3,
@@ -155,12 +155,11 @@ def test_sharded_trainer_end_to_end(mesh):
 def test_sharded_cdae_batch_topk_distributed(mesh):
     """ShardedCDAE.batch_topk (per-shard top-k + 'model'-axis merge) must
     return exactly the masked top-k of its own sharded scores."""
-    from cdae_tpu.ops.topk import topk_unrated
-    from cdae_tpu.parallel.trainer import ShardedCDAE
+    from cdae_jax.ops.topk import topk_unrated
+    from cdae_jax.parallel.trainer import ShardedCDAE
 
     data = _tiny(num_users=32, num_items=64, seed=8)
-    model = ShardedCDAE(CDAEConfig(num_dim=8, loss="SQUARE", batch_size=16,
-                                   use_pallas=False, dense_mode=False),
+    model = ShardedCDAE(CDAEConfig(num_dim=8, loss="SQUARE", batch_size=16, dense_mode=False),
                         mesh=mesh)
     state = model.reset(data, seed=0)
     pb = state.padded
@@ -175,13 +174,13 @@ def test_sharded_cdae_batch_topk_distributed(mesh):
 
 def test_sharded_dense_matches_single_chip(mesh):
     """Item-sharded dense slabs must match the single-chip dense trajectory."""
-    from cdae_tpu.parallel.trainer import ShardedCDAE
-    from cdae_tpu.solver.solver import Solver
+    from cdae_jax.parallel.trainer import ShardedCDAE
+    from cdae_jax.solver.solver import Solver
 
     data = _tiny(num_users=48, num_items=64, seed=5)
     train, test = data.split_by_user(0.25, seed=3)
     cfg = CDAEConfig(num_dim=16, loss="SQUARE", corruption_ratio=0.3,
-                     num_neg=2, batch_size=16, use_pallas=False,
+                     num_neg=2, batch_size=16,
                      dense_mode=True)
 
     ref = Solver(CDAE(cfg), max_iteration=3, eval_iterations=3,
@@ -203,13 +202,13 @@ def test_sharded_mf_dense_step_matches_single_chip(mesh):
     """Dense IMF step under DP x TP shardings equals the single-device step."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from cdae_tpu.models.mf import IMF, MFConfig
-    from cdae_tpu.parallel.mesh import mf_param_specs
-    from cdae_tpu.parallel.sharded import make_sharded_mf_dense_step
+    from cdae_jax.models.mf import IMF, MFConfig
+    from cdae_jax.parallel.mesh import mf_param_specs
+    from cdae_jax.parallel.sharded import make_sharded_mf_dense_step
 
     data = _tiny(num_users=32, num_items=64, seed=3)
     model = IMF(MFConfig(num_dim=16, num_neg=3, batch_size=16,
-                         dense_mode=True, fast_rng=False))
+                         dense_mode=True))
     state = model.reset(data, seed=0)
     R = state.aux["dense_R"]
     uid_mat, w_mat = model._dense_user_batches(state)
@@ -240,14 +239,13 @@ def test_sharded_imf_trainer_end_to_end(mesh):
     """ShardedIMF (ROADMAP r1 Scale item): Solver-driven training on the
     mesh matches single-chip dense IMF bitwise at every step, and the
     sharded scorer feeds the standard evaluator."""
-    from cdae_tpu.evaluation import Evaluation
-    from cdae_tpu.models.mf import IMF, MFConfig
-    from cdae_tpu.parallel.trainer import ShardedIMF
+    from cdae_jax.evaluation import Evaluation
+    from cdae_jax.models.mf import IMF, MFConfig
+    from cdae_jax.parallel.trainer import ShardedIMF
 
     data = _tiny(num_users=48, num_items=64, seed=7)
     train, test = data.split_by_user(0.25, seed=1)
-    cfg = MFConfig(num_dim=8, num_neg=3, batch_size=16, dense_mode=True,
-                   fast_rng=False)
+    cfg = MFConfig(num_dim=8, num_neg=3, batch_size=16, dense_mode=True)
 
     single = IMF(cfg)
     s_state = single.reset(train, seed=0)
@@ -276,9 +274,9 @@ def test_sharded_pairwise_matches_single(mesh, model_name):
     """ShardedPairwise (DP over the pair minibatch axis): same key stream
     as the single-chip fused epoch, params must match up to psum
     float-summation order; the wrapped scorer feeds the evaluator."""
-    from cdae_tpu.evaluation import Evaluation
-    from cdae_tpu.models import mf as mf_mod
-    from cdae_tpu.parallel.trainer import ShardedPairwise
+    from cdae_jax.evaluation import Evaluation
+    from cdae_jax.models import mf as mf_mod
+    from cdae_jax.parallel.trainer import ShardedPairwise
 
     data = _tiny(num_users=48, num_items=64, seed=3)
     train, test = data.split_by_user(0.25, seed=1)
@@ -314,8 +312,8 @@ def test_sharded_mf_tp_pointwise_matches_single(mesh, model_name):
     """ShardedMFTP pointwise family (IMF sampled negatives / PMF ratings):
     same key stream as the single-chip fused epoch, params match up to
     float summation order with the item table sharded P('model')."""
-    from cdae_tpu.models import mf as mf_mod
-    from cdae_tpu.parallel.tp_pairwise import ShardedMFTP
+    from cdae_jax.models import mf as mf_mod
+    from cdae_jax.parallel.tp_pairwise import ShardedMFTP
 
     data = _tiny(num_users=48, num_items=64, seed=7)
     train, _ = data.split_by_user(0.25, seed=1)
@@ -343,9 +341,9 @@ def test_sharded_mf_tp_pointwise_matches_single(mesh, model_name):
 def test_sharded_mf_tp_rejects_bad_configs(mesh):
     """Batch must divide the 'data' axis; only the sparse MF family is
     TP-shardable (ALS/FISM/NegMF have dedicated trainers)."""
-    from cdae_tpu.models.als import ALS, ALSConfig
-    from cdae_tpu.models.mf import BPR, MFConfig
-    from cdae_tpu.parallel.tp_pairwise import ShardedMFTP
+    from cdae_jax.models.als import ALS, ALSConfig
+    from cdae_jax.models.mf import BPR, MFConfig
+    from cdae_jax.parallel.tp_pairwise import ShardedMFTP
 
     with pytest.raises(ValueError, match="divide"):
         ShardedMFTP(BPR(MFConfig(num_dim=4, batch_size=30)), mesh=mesh)
@@ -355,8 +353,8 @@ def test_sharded_mf_tp_rejects_bad_configs(mesh):
 
 def test_sharded_imf_tp_no_negatives(mesh):
     """num_neg=0 pointwise branch (pure positives) matches single-chip."""
-    from cdae_tpu.models.mf import IMF, MFConfig
-    from cdae_tpu.parallel.tp_pairwise import ShardedMFTP
+    from cdae_jax.models.mf import IMF, MFConfig
+    from cdae_jax.parallel.tp_pairwise import ShardedMFTP
 
     data = _tiny(num_users=48, num_items=64, seed=17)
     train, _ = data.split_by_user(0.25, seed=1)
@@ -381,8 +379,8 @@ def test_sharded_warp_tp_matches_single_scan_path(mesh):
     same key stream as the single-chip scan epoch (dense_mode=False forces
     the scan path on the single-chip side too): params match up to float
     summation order."""
-    from cdae_tpu.models.mf import WARP, MFConfig
-    from cdae_tpu.parallel.tp_pairwise import ShardedMFTP
+    from cdae_jax.models.mf import WARP, MFConfig
+    from cdae_jax.parallel.tp_pairwise import ShardedMFTP
 
     data = _tiny(num_users=48, num_items=64, seed=13)
     train, _ = data.split_by_user(0.25, seed=1)
@@ -413,9 +411,9 @@ def test_sharded_pairwise_tp_matches_single(mesh):
     params match up to float summation order; item blocks carry the
     n_model padding and scoring slices it off. num_items=63 exercises a
     non-divisible catalog (pad row must stay zero / never be recommended)."""
-    from cdae_tpu.evaluation import Evaluation
-    from cdae_tpu.models.mf import BPR, MFConfig
-    from cdae_tpu.parallel.tp_pairwise import ShardedPairwiseTP
+    from cdae_jax.evaluation import Evaluation
+    from cdae_jax.models.mf import BPR, MFConfig
+    from cdae_jax.parallel.tp_pairwise import ShardedPairwiseTP
 
     data = _tiny(num_users=48, num_items=63, seed=3)
     train, test = data.split_by_user(0.25, seed=1)
@@ -462,7 +460,7 @@ def test_sharded_pairwise_tp_matches_single(mesh):
 
     # distributed batch_topk == masked top-k of the gathered scores, incl.
     # a batch size that does NOT divide the 'data' axis (internal padding)
-    from cdae_tpu.ops.topk import topk_unrated
+    from cdae_jax.ops.topk import topk_unrated
 
     pb = train.padded()
     uids = np.arange(7, dtype=np.int32)
@@ -475,8 +473,8 @@ def test_sharded_pairwise_tp_matches_single(mesh):
 def test_sharded_negmf_matches_single(mesh):
     """ShardedNegMF: same key stream as single-chip NegMF's fused epoch,
     params match up to psum summation order."""
-    from cdae_tpu.models.linear import FactorModelConfig, NegMF
-    from cdae_tpu.parallel.trainer import ShardedNegMF
+    from cdae_jax.models.linear import FactorModelConfig, NegMF
+    from cdae_jax.parallel.trainer import ShardedNegMF
 
     data = _tiny(num_users=48, num_items=64, seed=9)
     train, _ = data.split_by_user(0.25, seed=1)
@@ -504,8 +502,8 @@ def test_sharded_negmf_matches_single(mesh):
 def test_sharded_fism_matches_single(mesh):
     """ShardedFISM dense slabs: same key stream as single-chip dense FISM,
     params (incl. the x cache) match up to psum summation order."""
-    from cdae_tpu.models.fism import FISM, FISMConfig
-    from cdae_tpu.parallel.trainer import ShardedFISM
+    from cdae_jax.models.fism import FISM, FISMConfig
+    from cdae_jax.parallel.trainer import ShardedFISM
 
     data = _tiny(num_users=48, num_items=64, seed=11)
     train, _ = data.split_by_user(0.25, seed=1)
@@ -531,7 +529,7 @@ def test_sharded_fism_matches_single(mesh):
 def test_sharded_neighbor_build_matches_serial(mesh):
     """Mesh-parallel similarity neighbor build == the serial block loop
     exactly (same dots, row-independent top-k)."""
-    from cdae_tpu.models.similarity import (
+    from cdae_jax.models.similarity import (
         build_topk_neighbors, build_topk_neighbors_sharded,
     )
 
@@ -548,8 +546,8 @@ def test_sharded_neighbor_build_matches_serial(mesh):
 def test_sharded_als_matches_single(mesh, name):
     """ShardedALS/WRMF sweeps (row-block shard_map solves) match the
     single-chip fused iteration."""
-    from cdae_tpu.models.als import ALS, ALSConfig, WRMF
-    from cdae_tpu.parallel import trainer as tr
+    from cdae_jax.models.als import ALS, ALSConfig, WRMF
+    from cdae_jax.parallel import trainer as tr
 
     data = _tiny(num_users=48, num_items=64, seed=13)
     train, _ = data.split_by_user(0.25, seed=1)

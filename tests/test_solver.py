@@ -8,10 +8,10 @@ import jax
 import numpy as np
 import pytest
 
-from cdae_tpu.data.dataset import Interactions, movielens_line_parser
-from cdae_tpu.evaluation import Evaluation
-from cdae_tpu.models.cdae import CDAE, CDAEConfig
-from cdae_tpu.solver.solver import Solver, SGDSolver
+from cdae_jax.data.dataset import Interactions, movielens_line_parser
+from cdae_jax.evaluation import Evaluation
+from cdae_jax.models.cdae import CDAE, CDAEConfig
+from cdae_jax.solver.solver import Solver, SGDSolver
 
 
 @pytest.fixture(scope="module")
@@ -123,21 +123,21 @@ def test_cdae_pooled_negatives_learn(splits):
         splits,
         CDAEConfig(num_dim=10, learn_rate=0.1, lambda_=0.01, loss="SQUARE",
                    corruption_ratio=0.2, num_neg=5, batch_size=32,
-                   dense_mode=False, use_pallas=False, neg_pool=24),
+                   dense_mode=False, neg_pool=24),
         iters=20, eval_iterations=20,
     )
     assert solver.history[-1]["R@10"] > 0.3
 
 
 def test_cdae_bfloat16_trains(splits):
-    """bf16 parameter dtype runs end to end (TPU MXU-friendly); f32 remains
+    """bf16 parameter dtype runs end to end (tensor-core friendly); f32 remains
     the default (bf16 AdaGrad accumulators trade some accuracy)."""
     import jax.numpy as jnp
 
     solver = _run_cdae(
         splits,
         CDAEConfig(num_dim=8, loss="SQUARE", corruption_ratio=0.2,
-                   batch_size=32, dtype=jnp.bfloat16, use_pallas=False),
+                   batch_size=32, dtype=jnp.bfloat16),
         iters=5,
     )
     last = solver.history[-1]
@@ -219,7 +219,7 @@ def test_solver_loss_sample_size(splits):
     """Solver(loss_sample_size=n) logs the SUBSAMPLED train loss — the
     reference's data_loss(sample_size) protocol wired through the loop
     (model_base.hpp:28-39; honored by LinearModel)."""
-    from cdae_tpu.models.linear import LinearModel, LinearModelConfig
+    from cdae_jax.models.linear import LinearModel, LinearModelConfig
 
     train, test = splits
     full = Solver(LinearModel(LinearModelConfig(batch_size=64)),

@@ -4,10 +4,10 @@ import jax
 import numpy as np
 import pytest
 
-from cdae_tpu.data.dataset import Interactions, movielens_line_parser
-from cdae_tpu.models.base import iter_user_batches, iter_user_batches_csr
-from cdae_tpu.models.cdae import CDAE, CDAEConfig
-from cdae_tpu.solver.solver import Solver
+from cdae_jax.data.dataset import Interactions, movielens_line_parser
+from cdae_jax.models.base import iter_user_batches, iter_user_batches_csr
+from cdae_jax.models.cdae import CDAE, CDAEConfig
+from cdae_jax.solver.solver import Solver
 
 
 @pytest.fixture(scope="module")
@@ -38,8 +38,7 @@ def test_streamed_cdae_matches_padded_cdae(data):
     results = []
     for stream in (False, True):
         model = CDAE(CDAEConfig(num_dim=6, loss="SQUARE", batch_size=16,
-                                corruption_ratio=0.2, stream_batches=stream,
-                                use_pallas=False))
+                                corruption_ratio=0.2, stream_batches=stream))
         solver = Solver(model, max_iteration=4, eval_iterations=4,
                         seed=3, verbose=False)
         solver.train(train, test, ["TOPN"])
@@ -54,10 +53,8 @@ def test_streamed_cdae_matches_padded_cdae(data):
 
 def test_streamed_predict_and_representations(data):
     train, _ = data.split_by_user(0.2, seed=5)
-    m_pad = CDAE(CDAEConfig(num_dim=5, batch_size=16, stream_batches=False,
-                            use_pallas=False))
-    m_str = CDAE(CDAEConfig(num_dim=5, batch_size=16, stream_batches=True,
-                            use_pallas=False))
+    m_pad = CDAE(CDAEConfig(num_dim=5, batch_size=16, stream_batches=False))
+    m_str = CDAE(CDAEConfig(num_dim=5, batch_size=16, stream_batches=True))
     s_pad = m_pad.reset(train, seed=0)
     s_str = m_str.reset(train, seed=0)
     users = np.array([0, 3, 7, 11])
@@ -77,13 +74,13 @@ def test_streamed_predict_and_representations(data):
 def test_train_epochs_learns_like_iterations(data):
     """Fused multi-epoch program must reach the same quality as the
     per-iteration path (same model family, same budget)."""
-    from cdae_tpu.evaluation import Evaluation
+    from cdae_jax.evaluation import Evaluation
 
     train, test = data.split_by_user(0.2, seed=7)
     ev = Evaluation.create("TOPN")
 
     cfg = CDAEConfig(num_dim=8, loss="SQUARE", corruption_ratio=0.2,
-                     batch_size=16, use_pallas=False)
+                     batch_size=16)
     m1 = CDAE(cfg)
     s1 = m1.reset(train, seed=2)
     for i in range(12):
@@ -108,7 +105,7 @@ def test_row_update_matches_dense_apply_sgd(data):
     contributions), so the two paths must match to float tolerance on one
     step — across the tied/pooled/asymmetric/gated config families."""
     import jax.numpy as jnp
-    from cdae_tpu.models import cdae as M
+    from cdae_jax.models import cdae as M
 
     rng = np.random.default_rng(0)
     B, L, I, D = 8, 12, 40, 6
@@ -127,8 +124,7 @@ def test_row_update_matches_dense_apply_sgd(data):
                                   num_users=B, num_items=I)
     for kw in ({}, {"neg_pool": 16}, {"asymmetric": True},
                {"linear_function": True}):
-        base = dict(num_dim=D, loss="SQUARE", using_adagrad=False,
-                    use_pallas=False, fast_rng=False, **kw)
+        base = dict(num_dim=D, loss="SQUARE", using_adagrad=False, **kw)
         model = M.CDAE(M.CDAEConfig(row_update=False, **base))
         params0 = M.CDAE(M.CDAEConfig(row_update=False, **base)).reset(
             ds, seed=1).params
@@ -152,8 +148,7 @@ def test_row_update_adagrad_learns(data):
     recall in the sparse path's ballpark."""
     train, test = data.split_by_user(0.2, seed=20141119)
     model = CDAE(CDAEConfig(num_dim=8, loss="SQUARE", corruption_ratio=0.2,
-                            scaled=True, batch_size=16, use_pallas=False,
-                            fast_rng=False, row_update=True, neg_pool=16))
+                            scaled=True, batch_size=16, row_update=True, neg_pool=16))
     solver = Solver(model, max_iteration=8, eval_iterations=8,
                     seed=3, verbose=False)
     solver.train(train, test, ["TOPN"])
@@ -166,8 +161,8 @@ def test_iter_user_batches_csr_slots_budget():
     content matches the fixed-size iterator's."""
     import numpy as np
 
-    from cdae_tpu.data.dataset import Interactions
-    from cdae_tpu.models.base import iter_user_batches_csr
+    from cdae_jax.data.dataset import Interactions
+    from cdae_jax.models.base import iter_user_batches_csr
 
     rng = np.random.default_rng(7)
     U, I = 400, 300
@@ -213,9 +208,9 @@ def test_cdae_packed_io_matches_unpacked():
     steps and identical recall after short training."""
     import numpy as np
 
-    from cdae_tpu.data.dataset import Interactions, movielens_line_parser
-    from cdae_tpu.models.cdae import CDAE, CDAEConfig
-    from cdae_tpu.solver.solver import Solver
+    from cdae_jax.data.dataset import Interactions, movielens_line_parser
+    from cdae_jax.models.cdae import CDAE, CDAEConfig
+    from cdae_jax.solver.solver import Solver
 
     import os
     path = os.path.join(os.path.dirname(__file__), "data",
@@ -231,7 +226,7 @@ def test_cdae_packed_io_matches_unpacked():
                 num_dim=8, loss="SQUARE", corruption_ratio=0.5, scaled=True,
                 num_neg=3, user_factor=True, batch_size=16,
                 packed_io=packed, neg_pool=pool,
-                cache_device_batches=False, use_pallas=False,
+                cache_device_batches=False,
             ))
             solver = Solver(model, max_iteration=6, eval_iterations=6,
                             seed=5, verbose=False)

@@ -2,13 +2,15 @@
 reference's strategy in test/parallel_test.hpp), Random facade, timer,
 config, line search."""
 
+import os
+
 import numpy as np
 import pytest
 
-from cdae_tpu.solver.line_search import line_search
-from cdae_tpu.utils import parallel as P
-from cdae_tpu.utils import random as R
-from cdae_tpu.utils.timer import Timer, time_function
+from cdae_jax.solver.line_search import line_search
+from cdae_jax.utils import parallel as P
+from cdae_jax.utils import random as R
+from cdae_jax.utils.timer import Timer, time_function
 
 
 def test_parallel_for_matches_serial():
@@ -70,17 +72,56 @@ def test_line_search_quadratic():
     assert 0 < step <= 1.0
 
 
-def test_compile_cache_enable(tmp_path, monkeypatch):
-    """compile_cache.enable points jax at the dir (env wins; off disables)."""
+@pytest.fixture
+def restore_cache_dir():
     import jax
 
-    from cdae_tpu.utils.compile_cache import enable
+    old = jax.config.jax_compilation_cache_dir
+    yield
+    jax.config.update("jax_compilation_cache_dir", old)
+
+
+def test_compile_cache_env_dir_wins(tmp_path, monkeypatch, restore_cache_dir):
+    """A set JAX_COMPILATION_CACHE_DIR is left to JAX: enable() reports it
+    and sets no other directory."""
+    import jax
+
+    from cdae_jax.utils.compile_cache import cache_dir, enable
 
     d = str(tmp_path / "xla")
-    monkeypatch.delenv("CDAE_COMPILE_CACHE", raising=False)
-    assert enable(d) == d
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", d)
+    before = jax.config.jax_compilation_cache_dir
+    assert enable() == d == cache_dir()
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_inside_checkout(monkeypatch,
+                                               restore_cache_dir):
+    """Without the env var the cache is <repo>/.jax_cache, a directory
+    .gitignore lists."""
+    import jax
+
+    from cdae_jax.utils.compile_cache import enable
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    d = enable()
+    assert d == os.path.join(repo, ".jax_cache")
     assert jax.config.jax_compilation_cache_dir == d
-    import os
     assert os.path.isdir(d)
-    monkeypatch.setenv("CDAE_COMPILE_CACHE", "off")
-    assert enable() is None
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
+
+
+def test_compile_cache_path_stable(tmp_path, monkeypatch):
+    """The default path depends on nothing that changes between runs: not
+    the cwd, HOME, TMPDIR or the process."""
+    from cdae_jax.utils import compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    first = compile_cache.cache_dir()
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    assert compile_cache.cache_dir() == first
+    assert not first.startswith(str(tmp_path))
